@@ -2,7 +2,7 @@
 
 Reference counterpart: ``SequenceAccessor`` (``libms/src/SequenceAccessor.cpp``),
 which builds per-record (offset, length) indexes and re-reads from disk
-under a mutex on every access.  The TPU-native design instead loads each
+under a mutex on every access.  This design instead loads each
 record once into contiguous host memory (bytes), because consensus reads
 sequences many times per base and the target genomes (<= a few hundred Mb)
 fit host RAM comfortably; an offset-index + mmap mode can be layered in

@@ -1,4 +1,4 @@
-"""Dense match store — the TPU-native MatchMap.
+"""Dense match store — the array-table MatchMap.
 
 Reference counterpart: ``matching::MatchMap`` (``libms/src/matching/MatchMap.cpp``,
 ``include/ms/matching/MatchMap.h:51-87``).  Differences by design:

@@ -1,6 +1,6 @@
 // Native host runtime for muchsalsa_tpu: hot I/O and byte-level paths.
 //
-// TPU-native counterpart of the reference's C++ data plane —
+// Counterpart of the reference's C++ data plane —
 // BlastFileAccessor/BlastFileReader (libms/src/BlastFileReader.cpp),
 // SequenceAccessor (libms/src/SequenceAccessor.cpp) and
 // getReverseComplement (libms/src/SequenceUtils.cpp:41-61) — exposed as

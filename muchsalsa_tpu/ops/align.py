@@ -2,12 +2,10 @@
 
 This is a capability the reference *lacks* natively — it delegates all
 base-level alignment to external minimap2 (``pipeline/pipeline.sh:175``,
-``-c --eqx``) and to coordinate arithmetic in consensus.  BASELINE.json
-requires an on-TPU "banded edit-distance/seed-extend alignment kernel";
-this module provides the XLA formulation, and
-``ops.align_pallas`` the hand-tiled Pallas variant.
+``-c --eqx``) and to coordinate arithmetic in consensus.  This module
+provides an on-device banded edit-distance kernel as an XLA formulation.
 
-Formulation (TPU-friendly: no intra-row dependency):
+Formulation (vector-friendly: no intra-row dependency):
 with D the (m+1, n+1) Levenshtein matrix and rows swept i = 1..m over a
 static band of diagonals k = j - i in [klo, klo + B), the in-row
 left-neighbor chain D[i][j-1] + 1 collapses into a *min-plus prefix

@@ -1,6 +1,6 @@
-"""Batched, bucketized anchor-chaining DP for the device (TPU/XLA).
+"""Batched, bucketized anchor-chaining DP for the device (XLA).
 
-This is the TPU-native replacement for the reference's job-per-edge
+This is the data-parallel replacement for the reference's job-per-edge
 ``getMaxPairwisePaths`` fan-out (``mpp.cpp:145-249`` dispatched from
 ``main.cpp:170-178``): instead of one thread touching one edge's shared
 hash maps, every (edge, strand-class) problem becomes one row of a
@@ -12,7 +12,8 @@ reuse the oracle's ``finalize_paths``.
 
 Semantics are bit-matched to ``ops.chaining.check_compatibility`` —
 verified by the equivalence tests in ``tests/test_chaining_jax.py``.
-Compute dtype is float64 on CPU (exact vs oracle) and float32 on TPU.
+Compute dtype follows ``jax_enable_x64``: float64 in the tests (exact
+vs the oracle), float32 by default.
 """
 
 from __future__ import annotations
@@ -117,15 +118,6 @@ def _single_compat(b):
 
 
 @partial(jax.jit, static_argnames=("wiggle_room",))
-def compat_init_batch(batch: dict, wiggle_room: int):
-    """(B, K, K) compatibility matrices + (B, K) initial scores."""
-    b = dict(batch)
-    b["_wiggle"] = jnp.full(batch["score"].shape[:1], wiggle_room,
-                            batch["score"].dtype)
-    return jax.vmap(_single_compat)(b)
-
-
-@partial(jax.jit, static_argnames=("wiggle_room",))
 def chain_dp_batch(batch: dict, wiggle_room: int):
     """Compute per-problem DP scores + backpointers.
 
@@ -152,17 +144,6 @@ def chain_dp_batch(batch: dict, wiggle_room: int):
         return final, bps.astype(jnp.int32)
 
     return jax.vmap(single)(batch)
-
-
-@partial(jax.jit, static_argnames=("wiggle_room", "interpret"))
-def chain_dp_batch_pallas(batch: dict, wiggle_room: int,
-                          interpret: bool = False):
-    """chain_dp_batch with the forward scan fused into a Pallas kernel
-    (identical results; see ops/chaining_pallas.py)."""
-    from muchsalsa_tpu.ops.chaining_pallas import chain_scan_pallas
-
-    compat, init = compat_init_batch(batch, wiggle_room)
-    return chain_scan_pallas(compat, init, interpret=interpret)
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +180,6 @@ def chaining_phase_device(
     """
     from muchsalsa_tpu.ops.chaining import GatheredMatches, max_pairwise_paths
     from muchsalsa_tpu.ops.overlap import get_overlap
-    from muchsalsa_tpu.utils.aot_cache import cached_call
 
     dtype = np.float64 if jax.config.read("jax_enable_x64") else np.float32
     max_bucket = max(chain_buckets)
@@ -250,7 +230,7 @@ def chaining_phase_device(
             host_probs.extend(probs.tolist())
             continue
         # pad the batch axis to the next power of two: B is data-dependent
-        # and every distinct (B, K) shape is a fresh (remote) compile
+        # and every distinct (B, K) shape is a fresh compile
         nb = len(probs)
         B = 1 << int(nb - 1).bit_length() if nb > 1 else 1
         n_mesh = 1
@@ -284,22 +264,13 @@ def chaining_phase_device(
         cls_dir = np.zeros(B, dtype=bool)
         cls_dir[:nb] = prob_dir[probs]
         batch["cls_dir"] = jnp.asarray(cls_dir)
-        on_tpu = jax.devices()[0].platform == "tpu"
         if mesh is not None and n_mesh > 1:
             from muchsalsa_tpu.parallel.sharded import sharded_chain_dp
 
             scores_dev, bps_dev, _stats = sharded_chain_dp(
-                batch, int(wiggle_room), mesh,
-                axis=mesh.axis_names[0], use_pallas=on_tpu)
-        elif on_tpu:
-            # through the persistent executable cache: each (B, K) shape
-            # compiles once ever on this backend (utils/aot_cache.py)
-            scores_dev, bps_dev = cached_call(
-                chain_dp_batch_pallas, (batch,),
-                {"wiggle_room": int(wiggle_room)})
+                batch, int(wiggle_room), mesh, axis=mesh.axis_names[0])
         else:
-            scores_dev, bps_dev = cached_call(
-                chain_dp_batch, (batch,), {"wiggle_room": int(wiggle_room)})
+            scores_dev, bps_dev = chain_dp_batch(batch, int(wiggle_room))
         scores_np = np.asarray(scores_dev)
         bps_np = np.asarray(bps_dev)
 

@@ -8,11 +8,11 @@ segmented scan.  Chunks merge on the host (sorted-run combine), so
 results are exactly ``count_kmers``'s ``(sorted unique uint64 values,
 counts)`` for any chunking.
 
-TPU economics: the sort is VMEM/HBM-bandwidth bound (~ns/element) vs
-the host's comparison sort — the win is real on a directly-attached
-TPU; through a slow host<->device link the transfer of (value, count)
-runs back dominates, so the pipeline keeps the native host counter as
-the default and exposes this as ``device_kmer``.
+Economics: the device sort is memory-bandwidth bound, against the
+host's comparison sort; the transfer of (value, count) runs back to the
+host is the cost that can eat the win.  Auto placement in
+``pipeline.full`` runs this whenever an accelerator is attached;
+``device_kmer`` forces either path.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Minimizer extraction — the seeding primitive of the on-TPU mapper.
+"""Minimizer extraction — the seeding primitive of the device mapper.
 
 The reference delegates all base-level anchoring to external ``minimap2``
 calls (``pipeline/pipeline.sh:163,169,175`` with ``-k15 -w5``); this

@@ -1,7 +1,7 @@
 """Myers bit-parallel edit distance — prototypes and the batched
 word-sliced formulation.
 
-The wavefront kernel (``ops.align``/``align_pallas``) spends ~20
+The wavefront kernel (``ops.align``) spends ~20
 lane-ops per DP cell; Myers' bit-vector algorithm (Myers, JACM 1999)
 packs 32 cells per machine word, and its only cross-word interactions
 (the addition carry and the horizontal delta chain) vectorise as short

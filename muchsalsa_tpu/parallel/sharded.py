@@ -4,7 +4,7 @@ Replaces the reference's job fan-outs with SPMD over a device mesh:
 chaining problems are data-parallel over the batch axis, and global
 statistics (edge survival counts, score mass — the quantities the
 reference accumulates under mutexes, e.g. ``main.cpp:180``) are merged
-with ``psum`` collectives over ICI.
+with ``psum`` collectives.
 """
 
 from __future__ import annotations
@@ -19,22 +19,15 @@ from jax import shard_map
 from muchsalsa_tpu.ops.chaining_jax import chain_dp_batch
 
 
-def sharded_chain_dp(batch: dict, wiggle_room: int, mesh: Mesh, axis: str = "reads",
-                     use_pallas: bool = False):
+def sharded_chain_dp(batch: dict, wiggle_room: int, mesh: Mesh, axis: str = "reads"):
     """Run the chaining DP data-parallel over the mesh.
 
     ``batch`` arrays are (B, K) with B divisible by the mesh size.
     Returns (scores, backptrs, stats) where ``stats`` is the globally
-    psum-merged [n_problems, total_best_score] pair — the cross-chip
+    psum-merged [n_problems, total_best_score] pair — the cross-device
     reduction that replaces the reference's mutex-guarded accumulation.
-    ``use_pallas`` runs the fused Pallas scan per shard (TPU).
     """
     in_spec = {k: P(axis) if v.ndim >= 1 else P() for k, v in batch.items()}
-    kernel = chain_dp_batch
-    if use_pallas:
-        from muchsalsa_tpu.ops.chaining_jax import chain_dp_batch_pallas
-
-        kernel = chain_dp_batch_pallas
 
     @partial(
         shard_map,
@@ -43,7 +36,7 @@ def sharded_chain_dp(batch: dict, wiggle_room: int, mesh: Mesh, axis: str = "rea
         out_specs=(P(axis), P(axis), P()),
     )
     def step(local_batch):
-        scores, bps = kernel(local_batch, wiggle_room)
+        scores, bps = chain_dp_batch(local_batch, wiggle_room)
         best = jnp.max(jnp.where(local_batch["valid"], scores, 0.0), axis=1)
         local_stats = jnp.stack(
             [jnp.sum(jnp.any(local_batch["valid"], axis=1)).astype(best.dtype), jnp.sum(best)]
@@ -63,10 +56,9 @@ def sharded_anchor_counts(
     w: int = 5,
     axis: str = "reads",
 ):
-    """Multi-chip mapping lookup: reads shard over the mesh, the sorted
-    unitig-minimizer index is replicated on every chip (BASELINE.json
-    north star: "unitigs ... sharded/replicated across a multi-host TPU
-    pod slice; nanopore long reads stream in data-parallel batches").
+    """Multi-device mapping lookup: reads shard over the mesh, the sorted
+    unitig-minimizer index is replicated on every device (unitigs
+    replicated, nanopore long reads streamed in data-parallel batches).
 
     Returns ((R,) per-read anchor counts, (2,) psum-merged
     [reads_with_anchors, total_anchors]).
@@ -138,8 +130,8 @@ def sharded_map_reads_v2(
 ):
     """Multi-chip FULL mapping over the packed v2 join tables
     (:func:`ops.mapping_jax.map_reads_device_v2`): reads shard over the
-    mesh, the packed tables are replicated — no cross-chip traffic in
-    the hot loop (ICI only carries the psum'd stat pair)."""
+    mesh, the packed tables are replicated — no cross-device traffic in
+    the hot loop (the collective only carries the psum'd stat pair)."""
     from muchsalsa_tpu.ops.mapping_jax import map_reads_device_v2
 
     @partial(
@@ -173,7 +165,7 @@ def sharded_map_reads_v2_packed(
     axis: str = "reads",
     **kwargs,
 ):
-    """:func:`sharded_map_reads_v2` over tunnel-packed read codes
+    """:func:`sharded_map_reads_v2` over 2-bit packed read codes
     (``ops.mapping_jax.pack_codes``): the 2-bit words shard over the
     mesh like the codes they encode; unpack runs per-shard on device."""
     from muchsalsa_tpu.ops.mapping_jax import map_reads_device_v2, unpack_codes

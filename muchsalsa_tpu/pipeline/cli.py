@@ -27,21 +27,6 @@ def _load_config(path: str | None) -> Config:
     return DEFAULT_CONFIG
 
 
-def _ensure_backend() -> None:
-    """Fall back to CPU when the pinned jax platform cannot initialize
-    (e.g. JAX_PLATFORMS names an accelerator plugin that isn't
-    importable in this environment)."""
-    import jax
-
-    try:
-        jax.devices()
-    except RuntimeError as exc:
-        print(f"[muchsalsa-tpu] {exc}", file=sys.stderr)
-        print("[muchsalsa-tpu] falling back to CPU backend", file=sys.stderr)
-        jax.config.update("jax_platforms", "cpu")
-        jax.devices()
-
-
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="muchsalsa-tpu")
     parser.add_argument("--config", help="JSON config file", default=None)
@@ -101,7 +86,11 @@ def main(argv: list[str] | None = None) -> int:
         print(config.to_json())
         return 0
 
-    _ensure_backend()
+    # initialises the backend: one that fails raises here rather than
+    # falling back to the CPU (CPU runs say JAX_PLATFORMS=cpu)
+    from muchsalsa_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.command == "core":
         # integrity check (reference Application::checkIntegrity,

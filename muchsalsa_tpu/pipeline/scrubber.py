@@ -177,6 +177,11 @@ def _subset_schedule(
     return schedule
 
 
+# device all-vs-all per scrub call: subsets attempted and subsets the
+# multiplicity guard declined to the host (written to report.txt)
+DEVICE_SCRUB_STATS: dict = {"subsets": 0, "declined": 0}
+
+
 def _device_all_vs_all(subset_store: SequenceStore, mapper_cfg,
                        entry_budget: float = 60e6,
                        max_chunks: float = 2):
@@ -185,7 +190,7 @@ def _device_all_vs_all(subset_store: SequenceStore, mapper_cfg,
     A 60 k-read subset indexes ~180M minimizer entries — past the v2
     join tables' 27-bit packing bound (``build_device_tables`` would
     refuse and the mapper would fall into the legacy per-shape-compile
-    path, one remote compile PER SUBSET).  So the index side is built
+    path, one compile PER SUBSET).  So the index side is built
     in CONTIGUOUS id chunks small enough to pack, every subset read is
     mapped against each chunk on the device, and chunk-local target
     ids are rebased.  Because chunks are ascending id ranges and the
@@ -198,11 +203,12 @@ def _device_all_vs_all(subset_store: SequenceStore, mapper_cfg,
         MinimizerIndex, map_all_with_device)
 
     items = list(subset_store.items())
-    # multiplicity guard (measured, BASELINE.md round 5): in an
-    # all-vs-all every minimizer indexes ~coverage reads, so past the
-    # mapper's expansion budgets EVERY read overflows and "device"
-    # degrades to N-chunk host fallback (1,697 s vs 215 s host at
-    # 40 Mb).  The exact multiplicity is entries/hashes of the full
+    # multiplicity guard: in an all-vs-all every minimizer indexes
+    # ~coverage reads, so past the mapper's expansion budgets EVERY read
+    # overflows and "device" degrades to N-chunk host fallback, several
+    # times slower than the host at 40 Mb on the accelerator this guard
+    # was first measured on (not yet re-measured on the GPU).  The
+    # exact multiplicity is entries/hashes of the full
     # subset index (built once here and REUSED — returned to the
     # caller on decline, fed to the single-chunk path otherwise).
     # Viability accounts for the mapper's tier-2 ladder: the read
@@ -210,15 +216,16 @@ def _device_all_vs_all(subset_store: SequenceStore, mapper_cfg,
     # anchor count (~len/3 candidates x multiplicity) fits the tier-2
     # anchor trim.
     full_idx = MinimizerIndex.build(subset_store, mapper_cfg)
+    DEVICE_SCRUB_STATS["subsets"] += 1
     if len(full_idx.hashes) and items:
         mult = len(full_idx.entry_pos) / len(full_idx.hashes)
         est_chunks = max(1.0, len(full_idx.entry_pos) / entry_budget)
-        # two measured disqualifiers (BASELINE.md round 5):
+        # two disqualifiers:
         # - chunk multiplication: every subset read maps against EVERY
         #   index chunk, so an N-chunk subset costs N x the mapping
         #   work of the host's single index (40 Mb: 12 chunks -> 12 x
-        #   53k = 639k mappings, 1,400 s vs 102 s host even with the
-        #   tier ladder rescuing everything);
+        #   53k = 639k mappings, which lost to the host by an order of
+        #   magnitude even with the tier ladder rescuing everything);
         # - universal tiering: multiplicity near/above the tier-1 cap
         #   routes essentially every read through a second device
         #   pass, doubling exec.
@@ -228,6 +235,7 @@ def _device_all_vs_all(subset_store: SequenceStore, mapper_cfg,
                   f"all-vs-all runs host-native (pair-join formulation "
                   f"needed for a device win, docs/DESIGN.md §9)",
                   flush=True)
+            DEVICE_SCRUB_STATS["declined"] += 1
             return None, full_idx
     # size chunks by estimated entries (~len/3 minimizers per read).
     # The binding constraint is usually the rank-probe bucket cap (<=31
@@ -388,6 +396,7 @@ def scrub_reads(
     """
     scrub_cfg = scrub_cfg or ScrubConfig()
     mapper_cfg = mapper_cfg or MapperConfig()
+    DEVICE_SCRUB_STATS.update(subsets=0, declined=0)
 
     nodes, adj = build_anchor_graph(paf_lines, scrub_cfg.min_hit_length)
     schedule = _subset_schedule(nodes, adj, scrub_cfg.subset_size)

@@ -99,6 +99,24 @@ def add_noise(rng: np.random.Generator, seq: bytes, error_rate: float) -> bytes:
     return out.tobytes()
 
 
+def nanopore_reads(
+    rng: np.random.Generator,
+    sim: SimulatedAssembly,
+    error_rate: float = 0.07,
+    junk_fraction: float = 0.2,
+):
+    """The simulation's reads as noisy nanopore records ``(name, seq)``:
+    ``add_noise`` at ``error_rate``, and ``junk_fraction`` of the reads
+    get a random 200-1500 bp tail on one end, like the adapter/chimeric
+    ends the scrubber trims from real data."""
+    for name, seq in sim.read_records():
+        seq = add_noise(rng, seq, error_rate)
+        if rng.random() < junk_fraction:
+            tail = random_genome(rng, int(rng.integers(200, 1500)))
+            seq = seq + tail if rng.random() < 0.5 else tail + seq
+        yield name, seq
+
+
 def illumina_pairs(
     rng: np.random.Generator,
     genome: bytes,

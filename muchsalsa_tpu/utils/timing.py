@@ -1,6 +1,6 @@
 """Stage timers + lightweight structured logging.
 
-TPU equivalent of the reference's TRACE macro / wall-clock prints
+Equivalent of the reference's TRACE macro / wall-clock prints
 (``include/ms/Debug.h:28-32``, ``pipeline/pipeline.sh:110``): per-stage
 host timers that can be dumped as JSON, plus optional ``jax.profiler``
 trace capture around a stage.

@@ -1,4 +1,4 @@
-"""Device-mapping overflow rate on a REPEAT-RICH genome (VERDICT r4 #7).
+"""Device-mapping overflow rate on a REPEAT-RICH genome .
 
 Round 4 measured 0.00% overflow on clean simulated genomes; the static
 budgets' real risk is repetitive sequence, where one minimizer indexes

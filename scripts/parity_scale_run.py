@@ -1,11 +1,11 @@
-"""Reference-binary parity + throughput at scale (VERDICT r2 items 2/6).
+"""Reference-binary parity + throughput at scale.
 
 Simulates a genome (clean truth PAF, same generator as the parity
 tests), runs the REAL reference C++ assembler (built offline by
 scripts/build_reference.sh) and this repo's assembler on identical
 inputs, asserts output parity (target byte-equal; query/PAF multiset
 equal modulo incidental record numbering, ap.cpp:1052), and prints the
-reads/s-through-core-assembly table for BASELINE.md.
+reads/s through core assembly of both.
 
 Usage: python scripts/parity_scale_run.py [genome_mb=12] [coverage=15]
          [threads=2] [--skip-ref]
@@ -68,6 +68,9 @@ def main() -> None:
     skip_ref = "--skip-ref" in sys.argv
 
     from muchsalsa_tpu.testing.simulate import simulate, write_simulation
+    from muchsalsa_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     rng = np.random.default_rng(20260820)
     print(f"[parity] simulating {genome_mb} Mb, {coverage}x ...", flush=True)

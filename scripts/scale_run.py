@@ -1,4 +1,4 @@
-"""S. cerevisiae-scale full-pipeline benchmark (BASELINE.md row).
+"""S. cerevisiae-scale full-pipeline run (BASELINE.json config ladder).
 
 Simulates a 12 Mb genome at 12x coverage with 7% read error and 20%
 junk-tailed reads, then drives the `full` pipeline (map -> unitig-filter
@@ -14,14 +14,14 @@ import numpy as np
 
 from muchsalsa_tpu.io.fasta import write_fasta
 from muchsalsa_tpu.testing.simulate import (
-    add_noise, illumina_pairs, random_genome, simulate,
+    illumina_pairs, nanopore_reads, simulate,
 )
 
 
 def main():
     genome_mb = float(sys.argv[1]) if len(sys.argv) > 1 else 12.0
     coverage = float(sys.argv[2]) if len(sys.argv) > 2 else 12.0
-    out = Path(sys.argv[3]) if len(sys.argv) > 3 else Path("/tmp/scale_run")
+    out = Path(sys.argv[3]) if len(sys.argv) > 3 else Path("scratch_runs/scale_run")
     illu_cov = float(sys.argv[4]) if len(sys.argv) > 4 else 30.0
     # tri-state device placement: default auto (device stages when an
     # accelerator is attached); --host forces the all-host pipeline,
@@ -41,18 +41,10 @@ def main():
         unitig_gap=300,
     )
 
-    def noisy_reads():
-        for name, seq in sim.read_records():
-            seq = add_noise(rng, seq, 0.07)
-            # 20% of reads get a junk (random-sequence) tail, as real
-            # nanopore data has adapter/chimeric ends the scrubber trims
-            if rng.random() < 0.2:
-                tail = random_genome(rng, int(rng.integers(200, 1500)))
-                seq = seq + tail if rng.random() < 0.5 else tail + seq
-            yield name, seq
-
+    # 7% error; 20% of reads get a junk tail, as real nanopore data has
+    # adapter/chimeric ends the scrubber trims
     nano = out / "nanopore.fa"
-    write_fasta(nano, noisy_reads())
+    write_fasta(nano, nanopore_reads(rng, sim, 0.07, 0.2))
     pairs = illumina_pairs(rng, sim.genome, coverage=illu_cov)
     illu1, illu2 = out / "illu1.fa", out / "illu2.fa"
     write_fasta(illu1, ((f"p{i}/1", a) for i, (a, b) in enumerate(pairs)))
@@ -61,6 +53,9 @@ def main():
 
     from muchsalsa_tpu.config import Config
     from muchsalsa_tpu.pipeline.full import run_full_pipeline
+    from muchsalsa_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     t0 = time.perf_counter()
     final = run_full_pipeline(

@@ -30,6 +30,9 @@ def main() -> None:
     widths = [int(x) for x in (sys.argv[1].split(",") if len(sys.argv) > 1
                                else ("1", "2", "4", "8"))]
 
+    from muchsalsa_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax
     import jax.numpy as jnp
 

@@ -95,3 +95,25 @@ def test_banded_revcomp_differs():
     d_rc = int(banded_edit_distance(*pack_problems([(s, rc)]), band=640)[0])
     assert d_fwd == 0
     assert d_rc == edit_distance_np(s, rc)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_banded_matches_oracle_short_high_error(seed):
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for _ in range(6):
+        n = int(rng.integers(40, 200))
+        q = random_genome(rng, n)
+        pairs.append((q, mutate(rng, q, rate=0.12)))
+    out = np.asarray(banded_edit_distance(*pack_problems(pairs), band=128))
+    expected = np.array([edit_distance_np(q, t) for q, t in pairs])
+    np.testing.assert_array_equal(out, expected)
+
+
+def test_banded_guard_at_band_edge():
+    """A length difference of band-1 still fits the band; band does not."""
+    q = b"A" * 200
+    pairs = [(q, b"A" * (200 - 127)), (q, b"A" * (200 - 128))]
+    out = np.asarray(banded_edit_distance(*pack_problems(pairs), band=128))
+    assert out[0] == 127
+    assert out[1] == -1

@@ -1,7 +1,7 @@
 """True multi-process streaming scrub: 2 jax.distributed CPU processes
 sharing the per-subset overlap work, output identical to single-host
-(the TPU-native analog of the reference's out-of-core scrubber,
-scrubber_bfs.py:163-248 — VERDICT round-1 item 8)."""
+(the multi-process analog of the reference's out-of-core scrubber,
+scrubber_bfs.py:163-248)."""
 
 from __future__ import annotations
 

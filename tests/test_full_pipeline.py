@@ -93,3 +93,37 @@ def test_full_pipeline_device_map_matches_host(tmp_path):
                  "02_contigs_corrected.scrubbed.paf"):
         assert (dev_out / name).read_bytes() == (
             host_out / name).read_bytes(), name
+
+
+def test_auto_placement_is_host_on_cpu(tmp_path):
+    """On the CPU backend auto placement keeps every stage on the host."""
+    from muchsalsa_tpu.pipeline import full
+
+    assert full.accelerator_attached() is False
+    _, illu1, illu2, nano = make_inputs(tmp_path, genome_len=12_000, seed=9)
+    run_full_pipeline(illu1, illu2, nano, tmp_path / "out")
+    report = (tmp_path / "out" / "report.txt").read_text()
+    assert ("device placement: map=False kmer=False scrub=False dbg=False "
+            "(accelerator_attached=False)") in report
+
+
+def test_auto_placement_follows_accelerator_alone(tmp_path, monkeypatch):
+    """An attached accelerator puts all four stages on the device — no
+    link probe or other measurement can veto it — and the assembly is
+    byte-identical to the all-host run.  The scrub's decline counter is
+    written to the report."""
+    from muchsalsa_tpu.pipeline import full
+
+    _, illu1, illu2, nano = make_inputs(tmp_path, genome_len=12_000, seed=9)
+    host_final = run_full_pipeline(
+        illu1, illu2, nano, tmp_path / "host", device_map=False,
+        device_kmer=False, device_scrub=False, device_dbg=False)
+
+    monkeypatch.setattr(full, "accelerator_attached", lambda: True)
+    dev_final = run_full_pipeline(illu1, illu2, nano, tmp_path / "dev")
+    report = (tmp_path / "dev" / "report.txt").read_text()
+    assert ("device placement: map=True kmer=True scrub=True dbg=True "
+            "(accelerator_attached=True)") in report
+    assert "device map 01_unitigs.paf:" in report
+    assert "subsets declined to host" in report
+    assert dev_final.read_bytes() == host_final.read_bytes()

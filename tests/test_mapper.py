@@ -168,7 +168,7 @@ def test_refine_mappings_alignment_counts():
     from muchsalsa_tpu.pipeline.mapper import refine_mappings
 
     before = [m.matches for _, maps in per_read for m in maps]
-    refine_mappings(per_read, reads, unitigs, use_pallas=False)
+    refine_mappings(per_read, reads, unitigs)
     after = [m.matches for _, maps in per_read for m in maps]
     # alignment-based counts exceed the merged-minimizer heuristic
     for b, a in zip(before, after):
